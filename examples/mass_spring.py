@@ -12,10 +12,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")  # demos run anywhere; stay off TPU
-
 import numpy as np
 
 from lomanerf_tpu import dsl

@@ -1,11 +1,10 @@
-"""lomanerf_tpu — a TPU-native differentiable NeRF / neural-field framework.
+"""lomanerf_tpu — a differentiable NeRF / neural-field framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``loma-nerf`` project (an educational differentiable-programming DSL driving a
 CPU NeRF).  The loma DSL + C/ISPC/OpenCL compiler stack collapses here into:
 
 * ``core``     — pure-jnp semantic ops (the CPU-runnable oracle layer)
-* ``ops``      — fused Pallas TPU kernels with hand-derived VJPs
 * ``models``   — NeRF / image-field MLP model families
 * ``parallel`` — jax.sharding Mesh + shard_map data/tensor parallelism
 * ``data``     — Blender-synthetic dataset loader, ray generation, batching

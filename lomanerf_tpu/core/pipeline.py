@@ -25,9 +25,12 @@ from lomanerf_tpu.core.losses import sum_mse
 from lomanerf_tpu.core.mlp import Params, mlp_apply
 
 
-def image_fit_pred(params: Params, coords_encoded: jnp.ndarray) -> jnp.ndarray:
+def image_fit_pred(
+    params: Params, coords_encoded: jnp.ndarray, precision: str = "highest"
+) -> jnp.ndarray:
     """MLP prediction for the 2D image fit (sigmoid head on all channels)."""
-    return mlp_apply(params, coords_encoded, head="sigmoid")
+    return mlp_apply(params, coords_encoded, head="sigmoid",
+                     precision=precision)
 
 
 def image_fit_loss(
@@ -42,20 +45,27 @@ def nerf_render(
     points_encoded: jnp.ndarray,
     dists: jnp.ndarray,
     mode: str = "loma",
+    precision: str = "highest",
+    mlp: Callable = mlp_apply,
 ) -> jnp.ndarray:
     """Radiance-field render: MLP -> rgba -> compositing -> per-ray color.
 
     Args:
         params: MLP params (output channels >= 4; ch 0-2 rgb, ch 3 density).
         points_encoded: ``(N, S, F)`` encoded sample points.
-        dists: ``(N, S)`` step sizes (with far sentinel).
+        dists: ``(N, S)`` step sizes (with far sentinel), or ``(S,)`` shared
+            by every ray.
         mode: transmittance mode (see core.composite).
+        precision: matmul precision (see core.mlp.PRECISIONS).
+        mlp: ``(params, x, head=, precision=) -> y``; ``mlp_apply`` or the
+            tensor-parallel ``parallel.tp.tp_mlp_apply``.
 
     Returns:
         ``(N, 3)`` accumulated colors.
     """
     n, s, f = points_encoded.shape
-    rgba = mlp_apply(params, points_encoded.reshape(n * s, f), head="rgba")
+    rgba = mlp(params, points_encoded.reshape(n * s, f), head="rgba",
+               precision=precision)
     rgba = rgba.reshape(n, s, -1)
     weights = render_weights(rgba[..., 3], dists, mode=mode)
     return accumulate_color(weights, rgba[..., :3])
@@ -80,8 +90,10 @@ def nerf_render_rays(
     dists: jnp.ndarray,
     num_functions: int = 5,
     mode: str = "loma",
+    precision: str = "highest",
+    mlp: Callable = mlp_apply,
 ) -> jnp.ndarray:
-    """Render straight from rays: sample points + encoding fused in-graph.
+    """Render straight from rays: sample points + encoding computed in-graph.
 
     This is the production entry point — positional encoding is computed
     on-device from 6 floats/ray instead of streaming 3*(1+2n) floats/sample
@@ -90,7 +102,8 @@ def nerf_render_rays(
     """
     points = origins[:, None, :] + directions[:, None, :] * t_vals[..., None]
     enc = positional_encoding(points, num_functions=num_functions)
-    return nerf_render(params, enc, dists, mode=mode)
+    return nerf_render(params, enc, dists, mode=mode, precision=precision,
+                       mlp=mlp)
 
 
 def nerf_loss_rays(
@@ -102,9 +115,12 @@ def nerf_loss_rays(
     target: jnp.ndarray,
     num_functions: int = 5,
     mode: str = "loma",
+    precision: str = "highest",
+    mlp: Callable = mlp_apply,
 ) -> jnp.ndarray:
     pred = nerf_render_rays(
-        params, origins, directions, t_vals, dists, num_functions, mode
+        params, origins, directions, t_vals, dists, num_functions, mode,
+        precision, mlp,
     )
     return sum_mse(pred, target)
 

@@ -78,9 +78,8 @@ def sample_along_rays(
     Unjittered (``key=None``, the reference's linspace sampling,
     train_nerf.py:289-299), every ray shares the same depths, so ``t_vals``
     and ``dists`` are returned as ``(S,)`` — downstream consumers broadcast,
-    and the fused kernels use the 1-D shape as the per-ray-uniform contract
-    that enables in-kernel sample-point generation (ops/fused_nerf s-major
-    layout).  Stratified (``key`` given), they are per-ray ``(N, S)``.
+    and the sharded train step replicates them instead of sharding
+    O(N*S) depths.  Stratified (``key`` given), they are per-ray ``(N, S)``.
     ``dists[..., -1]`` is the reference's 1e8 sentinel.
     """
     t = jnp.linspace(near, far, num_samples, dtype=jnp.float32)
@@ -88,8 +87,8 @@ def sample_along_rays(
     if key is not None:
         # stratified: jitter each bin uniformly within its width, per ray.
         # Training prefers stratified_ray_offsets (per-ray comb shift folded
-        # into origins), which keeps depths (S,) and the fused kernels fast;
-        # this per-bin variant remains as the independent-jitter oracle.
+        # into origins), which keeps depths (S,); this per-bin variant
+        # remains as the independent-jitter oracle.
         bin_width = (far - near) / num_samples
         jitter = jax.random.uniform(key, (n, num_samples), dtype=jnp.float32)
         t = t[None, :] + jitter * bin_width
@@ -110,10 +109,9 @@ def stratified_ray_offsets(
     uniform draw within a bin width, so each sample is still uniform over
     its stratum but depths stay PER-RAY-UNIFORM — ``o + d*dt[:, None]``
     with the unjittered ``(S,)`` t_vals/dists reproduces ``t_base + dt``
-    exactly (points depend on depth only through ``o + d*t``), and the
-    fused s-major kernels keep their in-kernel point generation (O(N) ray
-    bytes; PERF.md round-3).  The reference sketches per-sample jitter,
-    commented out (train_nerf.py:289-294).
+    exactly (points depend on depth only through ``o + d*t``), so a batch
+    carries O(N) ray data instead of O(N*S) depths.  The reference sketches
+    per-sample jitter, commented out (train_nerf.py:289-294).
     """
     bin_width = (far - near) / num_samples
     return jax.random.uniform(key, (num_rays,), dtype=jnp.float32) * bin_width

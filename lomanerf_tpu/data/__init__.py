@@ -5,5 +5,6 @@ from lomanerf_tpu.data.synthetic import (  # noqa: F401
     GaussianBlobScene,
     look_at_pose,
     sphere_poses,
+    synthetic_views,
     write_blender_dataset,
 )

@@ -19,13 +19,6 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-try:
-    from PIL import Image
-
-    _HAVE_PIL = True
-except ImportError:  # pragma: no cover
-    _HAVE_PIL = False
-
 
 class NeRFDataset:
     """Sequence of {image, pose, focal_length} samples."""
@@ -54,9 +47,9 @@ class NeRFDataset:
         return len(self.data)
 
     def __getitem__(self, idx: int) -> Dict:
+        from PIL import Image  # only reading real png frames needs PIL
+
         img_path, pose = self.data[idx]
-        if not _HAVE_PIL:
-            raise RuntimeError("PIL required to load png frames")
         image = (
             Image.open(img_path)
             .resize((self.img_size, self.img_size))

@@ -86,9 +86,8 @@ class RayBatchPipeline:
     (S,) / ``dists`` (S, 1e8 sentinel) plus a per-ray scalar ``t_offsets``
     in each batch (stratified = shifted-lattice jitter within one bin; 0
     when unjittered).  Fold offsets into origins (``o + d*dt[:, None]``) —
-    depths then stay (S,) per-ray-uniform, which is the fused TPU kernels'
-    in-kernel point-generation contract (O(N) ray bytes, no O(N*S) depth
-    arrays; PERF.md round-3 s-major layout).
+    depths then stay (S,) per-ray-uniform (O(N) ray bytes, no O(N*S)
+    depth arrays).
     """
 
     def __init__(

@@ -3,9 +3,11 @@
 The reference trains on the Blender 'lego' scene, which is not shipped with
 the repo; this module provides a self-contained stand-in: an analytic
 emission-absorption volume (colored Gaussian density blobs) rendered with
-the same camera model (normalized intrinsics, principal point 0.5), and a
-writer that emits a reference-compatible on-disk dataset
-(``transforms_train.json`` + PNG frames) for end-to-end driver tests.
+the same camera model (normalized intrinsics, principal point 0.5).
+:func:`synthetic_views` renders the training views in memory (what
+``train_nerf --data synthetic`` trains on); :func:`write_blender_dataset`
+writes the same views as a reference-compatible on-disk dataset
+(``transforms_train.json`` + PNG frames, needs PIL).
 """
 
 from __future__ import annotations
@@ -98,12 +100,37 @@ class GaussianBlobScene:
         return img.reshape(img_size, img_size, 3)
 
 
+LEGO_CAMERA_ANGLE_X = 0.8575560450553894  # the lego scene's fov
+
+
+def synthetic_views(
+    scene: Optional[GaussianBlobScene] = None,
+    n_frames: int = 8,
+    img_size: int = 64,
+    camera_angle_x: float = LEGO_CAMERA_ANGLE_X,
+    radius: float = 4.0,
+) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Render the scene from ``n_frames`` circular poses.
+
+    Returns ``(images (V, H, W, 3) in [0, 1], poses (V, 4, 4), focal)``
+    with the normalized focal ``0.5 / tan(0.5 * camera_angle_x)``, the
+    values NeRFDataset reads back from a written dataset (up to its 8-bit
+    quantization)."""
+    scene = scene or GaussianBlobScene()
+    focal = float(0.5 / np.tan(0.5 * camera_angle_x))
+    K = rays.normalized_intrinsics(focal)
+    poses = sphere_poses(n_frames, radius=radius)
+    images = np.stack([np.asarray(scene.render(K, pose, img_size))
+                       for pose in poses]).astype(np.float32)
+    return images, poses, focal
+
+
 def write_blender_dataset(
     out_dir: str,
     scene: Optional[GaussianBlobScene] = None,
     n_frames: int = 8,
     img_size: int = 64,
-    camera_angle_x: float = 0.8575560450553894,  # lego's fov
+    camera_angle_x: float = LEGO_CAMERA_ANGLE_X,
     phase: str = "train",
     radius: float = 4.0,
 ) -> str:
@@ -111,15 +138,12 @@ def write_blender_dataset(
     dataset (transforms_<phase>.json + <phase>/r_i.png).  Returns out_dir."""
     from PIL import Image
 
-    scene = scene or GaussianBlobScene()
-    focal = 0.5 / np.tan(0.5 * camera_angle_x)
-    K = rays.normalized_intrinsics(float(focal))
-    poses = sphere_poses(n_frames, radius=radius)
+    images, poses, _ = synthetic_views(scene, n_frames, img_size,
+                                       camera_angle_x, radius)
     frame_dir = os.path.join(out_dir, phase)
     os.makedirs(frame_dir, exist_ok=True)
     frames = []
-    for i, pose in enumerate(poses):
-        img = np.asarray(scene.render(K, pose, img_size))
+    for i, (img, pose) in enumerate(zip(images, poses)):
         img8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
         rel = f"{phase}/r_{i}"
         Image.fromarray(img8).save(os.path.join(out_dir, rel + ".png"))

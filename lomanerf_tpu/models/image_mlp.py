@@ -24,9 +24,8 @@ class ImageFieldConfig:
     img_size: int = 256
     init: str = "he"
     dtype: Any = jnp.float32
-    # matmul tier for the fused kernels: "highest" (fp32, oracle-exact
-    # parity work) | "high" (bf16x3 — passes the parity tolerances,
-    # production default) | "default" (single bf16 pass)
+    # matmul precision (core.mlp.PRECISIONS): "high" passes the parity
+    # tolerances and is the production default; "highest" is exact fp32
     precision: str = "high"
 
     @property
@@ -55,9 +54,8 @@ def image_grid_coords(img_size: int) -> jnp.ndarray:
 
 
 class ImageFieldModel:
-    def __init__(self, config: ImageFieldConfig, backend: str = "jnp"):
+    def __init__(self, config: ImageFieldConfig):
         self.config = config
-        self.backend = backend
 
     def init(self, key: jax.Array) -> mlp.Params:
         c = self.config
@@ -77,21 +75,13 @@ class ImageFieldModel:
         )
 
     def predict(self, params, coords_encoded: jnp.ndarray) -> jnp.ndarray:
-        """Predict from pre-encoded inputs (parity path; always jnp)."""
-        return pipeline.image_fit_pred(params, coords_encoded)
+        """Predict from pre-encoded inputs."""
+        return pipeline.image_fit_pred(params, coords_encoded,
+                                       precision=self.config.precision)
 
     def predict_coords(self, params, coords: jnp.ndarray) -> jnp.ndarray:
-        """Predict from raw (N, 2) coords — fused encode+MLP on pallas."""
-        if self.backend == "pallas":
-            from lomanerf_tpu.ops import fused_mlp
-
-            return fused_mlp.field_forward(
-                params, coords, self.config.num_encoding_functions,
-                out_channels=self.config.out_channels,
-                highest_precision=getattr(self.config, "precision",
-                                          "highest"),
-            )
-        return pipeline.image_fit_pred(params, self.encode(coords))
+        """Predict from raw (N, 2) coords (encoding runs in-graph)."""
+        return self.predict(params, self.encode(coords))
 
     def loss(self, params, coords, target) -> jnp.ndarray:
         return losses.sum_mse(self.predict_coords(params, coords), target)

@@ -25,6 +25,5 @@ from lomanerf_tpu.parallel.train_step import (  # noqa: F401
     RayBatch,
     make_train_step,
     place_state,
-    render_rays_local,
     state_specs,
 )

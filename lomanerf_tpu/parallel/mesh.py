@@ -1,9 +1,9 @@
 """Device mesh construction + multi-host initialization.
 
-TPU-native replacement for the reference's entire parallelism surface (the
+Replacement for the reference's entire parallelism surface (the
 ``@simd``/``atomic_add``/tasksys.cpp stack, SURVEY.md §2.2): rays are data-
 parallel across a ``Mesh`` axis, optionally with a tensor-parallel axis for
-wide-MLP configs; gradient reduction is ``lax.psum`` over ICI.
+wide-MLP configs; gradient reduction is ``lax.psum`` across devices.
 """
 
 from __future__ import annotations
@@ -15,23 +15,6 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
-def shard_map_compat(f, mesh, in_specs, out_specs):
-    """shard_map across jax versions: the top-level API (jax >= 0.6) takes
-    ``check_vma``; the experimental fallback takes ``check_rep``.  Both
-    checks are disabled (the fused per-shard kernels are opaque to the
-    replication checker)."""
-    try:
-        from jax import shard_map as sm
-
-        return sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                  check_vma=False)
-    except ImportError:  # pragma: no cover - old jax
-        from jax.experimental.shard_map import shard_map as sm
-
-        return sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                  check_rep=False)
-
-
 def make_mesh(
     dp: Optional[int] = None,
     tp: int = 1,
@@ -40,9 +23,9 @@ def make_mesh(
 ) -> Mesh:
     """Build a (data, model) mesh.
 
-    ``dp=None`` uses all remaining devices for data parallelism.  The data
-    axis is the outer (slowest) axis so that the model axis maps to
-    nearest-neighbor ICI links on real slices.
+    ``dp=None`` uses all remaining devices for data parallelism.  The
+    layout follows the algorithm alone: the cards of one host are joined
+    all to all, so no axis order is faster than another.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
@@ -69,7 +52,7 @@ def initialize_multihost(
 ) -> None:
     """Multi-host init (jax.distributed).
 
-    No-op when already initialized (e.g. a TPU pod runtime that pre-wires
+    No-op when already initialized (e.g. a cluster runtime that pre-wires
     ``jax.distributed``).  With an explicit ``coordinator`` (or the standard
     ``JAX_COORDINATOR_ADDRESS`` env var) it joins/forms the cluster; on a
     plain single host with neither it is a no-op.

@@ -3,14 +3,13 @@
 The train step shards rays over the ``data`` mesh axis
 (parallel/train_step.py); this module gives the EVAL/render path the same
 layout: a frame's rays are split into fixed-size chunks, the chunk list is
-sharded over the mesh, each device scans ITS chunks through the fused
-render kernel (or the jnp pipeline), and the full frame is reassembled
-in-program by a tiled ``all_gather`` over ICI.  This is the TPU-native
-replacement for the reference's serial chunk loop in its eval pass
-(/root/reference/train_nerf.py:558-712) at pod scale: "800x800 renders with
-rays sharded across N hosts" = N devices each render 1/N of the frame's
-chunks concurrently; the all-gather (7.7 MB for an 800x800 fp32 frame)
-rides ICI and is negligible next to the per-chunk MLP work.
+sharded over the mesh, each device scans ITS chunks through the pipeline,
+and the full frame is reassembled in-program by a tiled ``all_gather``.
+This replaces the reference's serial chunk loop in its eval pass
+(/root/reference/train_nerf.py:558-712): "800x800 renders with rays
+sharded across N devices" = N devices each render 1/N of the frame's
+chunks concurrently; the all-gather moves 7.7 MB for an 800x800 fp32
+frame, small next to the per-chunk MLP work.
 
 Multi-host: every process computes the (tiny) ray grid from (K, c2w)
 identically, and ``jax.make_array_from_callback`` places each host's chunk
@@ -26,42 +25,39 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from lomanerf_tpu.parallel.mesh import shard_map_compat
 
 
-def sharded_render_fn(config, mesh: Mesh, backend: str = "jnp",
-                      axis: str = "data"):
+def sharded_render_fn(config, mesh: Mesh, axis: str = "data"):
     """The UNJITTED sharded render: (params, oc, dc) -> (N, 3) colors.
 
     ``oc``/``dc`` are (n_chunks, chunk, 3) ray-chunk stacks with n_chunks
     divisible by the mesh's ``axis`` size, sharded on the leading dim;
     params are replicated.  Output is the fully-assembled, replicated color
-    block.  Exposed unjitted so callers (bench.py's RTT-amortized
-    frame scan, the jitted step below) can embed it in their own programs.
+    block.  Exposed unjitted so callers (bench.py, the jitted step below)
+    can embed it in their own programs.
     """
     from lomanerf_tpu.models.nerf import render_chunk  # lazy: no import cycle
 
     def local_render(params, oc, dc):
         def body(_, od):
             o, d = od
-            return None, render_chunk(config, backend, params, o, d)
+            return None, render_chunk(config, params, o, d)
 
         _, cols = jax.lax.scan(body, None, (oc, dc))
         cols = cols.reshape(-1, 3)
         # reassemble the frame: device i rendered chunks [i*k, (i+1)*k)
         return jax.lax.all_gather(cols, axis, tiled=True)
 
-    return shard_map_compat(
-        local_render, mesh,
+    return jax.shard_map(
+        local_render, mesh=mesh,
         in_specs=(P(), P(axis), P(axis)),
-        out_specs=P(),
+        out_specs=P(), check_vma=False,
     )
 
 
-def make_render_step(config, mesh: Mesh, backend: str = "jnp",
-                     axis: str = "data"):
+def make_render_step(config, mesh: Mesh, axis: str = "data"):
     """Jitted mesh-sharded render step: (params, oc, dc) -> (N, 3)."""
-    return jax.jit(sharded_render_fn(config, mesh, backend, axis))
+    return jax.jit(sharded_render_fn(config, mesh, axis))
 
 
 def shard_ray_chunks(mesh: Mesh, o, d, chunk: int, axis: str = "data"):

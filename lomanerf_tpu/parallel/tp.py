@@ -8,17 +8,22 @@ layers communicate.  This is new scope vs the reference (which has no model
 parallelism at all — SURVEY.md §2.2 "strategies NOT present").
 
 All functions here run *inside* ``shard_map``; params are the local shards.
+The steps run shard_map with the replication checker off, and there the
+transpose of ``psum`` is ``psum`` and that of ``all_gather`` is a
+reduce-scatter — both wrong for a cotangent that is already replicated.
+So each collective here carries its own gradient rule (Megatron's f / g).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from lomanerf_tpu.core.mlp import Params, _apply_head
+from lomanerf_tpu.core.mlp import Params, _apply_head, dense
 
 
 def tp_param_specs(num_layers: int) -> Params:
@@ -37,39 +42,73 @@ def tp_param_specs(num_layers: int) -> Params:
     return {"w": w_specs, "b": b_specs}
 
 
+@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
+def _to_columns(x, axis_name):
+    """Identity forward; backward all-reduces the partial input gradients
+    of a column layer (Megatron's f)."""
+    return x
+
+
+_to_columns.defvjp(lambda x, axis_name: (x, None),
+                   lambda axis_name, _, g: (jax.lax.psum(g, axis_name),))
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
+def _sum_rows(z, axis_name):
+    """All-reduce of a row layer's partial products; backward passes the
+    replicated cotangent through unchanged (Megatron's g)."""
+    return jax.lax.psum(z, axis_name)
+
+
+_sum_rows.defvjp(lambda z, axis_name: (jax.lax.psum(z, axis_name), None),
+                 lambda axis_name, _, g: (g,))
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
+def _gather_columns(y, axis_name):
+    """Tiled all-gather of column-sharded features; backward keeps this
+    shard's slice of the replicated cotangent."""
+    return jax.lax.all_gather(y, axis_name, axis=-1, tiled=True)
+
+
+def _gather_columns_fwd(y, axis_name):
+    return _gather_columns(y, axis_name), y.shape[-1]
+
+
+def _gather_columns_bwd(axis_name, width, g):
+    start = jax.lax.axis_index(axis_name) * width
+    return (jax.lax.dynamic_slice_in_dim(g, start, width, axis=-1),)
+
+
+_gather_columns.defvjp(_gather_columns_fwd, _gather_columns_bwd)
+
+
 def tp_mlp_apply(
     params: Params,
     x: jnp.ndarray,
     head: str = "rgba",
     axis_name: str = "model",
-    precision=jax.lax.Precision.HIGHEST,
+    precision: str = "highest",
 ) -> jnp.ndarray:
     """Forward the TP-sharded MLP on replicated activations ``x``.
 
     Column layer i: ``y_loc = x @ W_loc + b_loc`` (output sharded).
     Row layer i:    ``y = psum(x_loc @ W_loc) + b`` (output replicated).
     ReLU between layers runs wherever the activation lives (elementwise).
-    The final layer's head activation must see full features, so an odd
-    number of layers ends with a column layer followed by an all-gather-like
-    psum of a one-hot placement; instead we simply make the LAST layer always
-    row-parallel when it would land on a column layer with a nonlinear head.
+    The head must see full features, so an odd number of layers ends with
+    a column layer whose output is all-gathered over the model axis.
     """
     n = len(params["w"])
     y = x
     for i, (w, b) in enumerate(zip(params["w"], params["b"])):
-        if i % 2 == 0 and i == n - 1:
-            # last layer landed column-parallel: compute local slice then
-            # all-gather over the model axis so the head sees full features
-            y = jnp.matmul(y, w, precision=precision) + b
-            y = jax.lax.all_gather(y, axis_name, axis=-1, tiled=True)
-            y = _apply_head(y, head)
-            return y
         if i % 2 == 0:
-            y = jnp.matmul(y, w, precision=precision) + b
+            y = dense(_to_columns(y, axis_name), w, precision) + b
+            if i == n - 1:
+                # last layer landed column-parallel: all-gather over the
+                # model axis so the head sees full features
+                return _apply_head(_gather_columns(y, axis_name), head)
         else:
-            y = jax.lax.psum(
-                jnp.matmul(y, w, precision=precision), axis_name
-            ) + b
+            y = _sum_rows(dense(y, w, precision), axis_name) + b
         if i < n - 1:
             y = jnp.maximum(y, 0.0)
         else:

@@ -4,7 +4,7 @@ Rays are sharded on the ``data`` axis (they are independent — the structural
 analog of the reference's host-side ray chunking, train_nerf.py:275-286, done
 properly); params are replicated across ``data`` and optionally sharded over
 ``model`` (see parallel.tp).  Weight-gradient reduction is ``lax.psum`` over
-ICI — the TPU-native replacement for loma's ``atomic_add`` adjoint
+the device interconnect — the replacement for loma's ``atomic_add`` adjoint
 accumulation (reverse_diff.py:144-155).  XLA's latency-hiding scheduler
 overlaps the per-layer psums with the remaining backward compute.
 """
@@ -12,16 +12,14 @@ overlaps the per-layer psums with the remaining backward compute.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import optax
 from jax.sharding import Mesh, PartitionSpec as P
 
-from lomanerf_tpu.parallel.mesh import shard_map_compat
-
-from lomanerf_tpu.core import composite, encoding, losses
+from lomanerf_tpu.core import pipeline
 from lomanerf_tpu.core.mlp import Params, mlp_apply
 from lomanerf_tpu.parallel.tp import tp_mlp_apply, tp_param_specs
 
@@ -39,33 +37,6 @@ class RayBatch(NamedTuple):
     t_vals: jnp.ndarray  # (N, S) or (S,)
     dists: jnp.ndarray  # (N, S) or (S,)
     target: jnp.ndarray  # (N, 3)
-
-
-def render_rays_local(
-    params: Params,
-    batch: RayBatch,
-    num_functions: int,
-    mode: str,
-    mlp_fn: Callable,
-    backend: str = "jnp",
-    config=None,
-) -> jnp.ndarray:
-    """Render the rays owned by this shard (runs inside shard_map)."""
-    if backend == "pallas":
-        from lomanerf_tpu.ops import fused_nerf
-
-        return fused_nerf.render_rays(
-            params, batch.origins, batch.directions, batch.t_vals, batch.dists, config
-        )
-    pts = (
-        batch.origins[:, None, :]
-        + batch.directions[:, None, :] * batch.t_vals[..., None]
-    )
-    enc = encoding.positional_encoding(pts, num_functions)
-    n, s, f = enc.shape
-    rgba = mlp_fn(params, enc.reshape(n * s, f)).reshape(n, s, -1)
-    weights = composite.render_weights(rgba[..., 3], batch.dists, mode=mode)
-    return composite.accumulate_color(weights, rgba[..., :3])
 
 
 def _mirror_spec(opt_state, params, p_spec):
@@ -131,7 +102,6 @@ def make_train_step(
     params: Params,
     opt_state,
     tp: bool = False,
-    backend: str = "jnp",
     donate: bool = True,
     uniform_depths: bool | None = None,
 ):
@@ -142,7 +112,6 @@ def make_train_step(
         params / opt_state: example pytrees (for sharding-spec derivation;
             their values are not captured).
         tp: also tensor-parallel the MLP over the ``model`` mesh axis.
-        backend: "jnp" or "pallas" for the per-shard render.
         uniform_depths: batches carry (S,) t_vals/dists shared by all rays
             (replicated over the mesh) instead of per-ray (N, S).  Default
             None infers it from ``batch.t_vals.ndim`` at call time (static
@@ -152,42 +121,22 @@ def make_train_step(
     Returns:
         ``step(params, opt_state, batch) -> (params, opt_state, loss)``.
     """
-    if tp and backend == "pallas":
-        # the fused kernels hold the full (padded) weight stack in VMEM per
-        # chip — width-sharded params would silently compute garbage
-        raise ValueError(
-            "backend='pallas' supports data parallelism only (params "
-            "replicated); use backend='jnp' for tensor parallelism"
-        )
-    if tp:
-        mlp_fn = functools.partial(tp_mlp_apply, head="rgba", axis_name="model")
-    else:
-        mlp_fn = functools.partial(mlp_apply, head="rgba")
+    mlp_fn = functools.partial(tp_mlp_apply, axis_name="model") if tp \
+        else mlp_apply
     p_spec, o_spec = state_specs(config, params, opt_state, tp)
 
     def local_step(params, opt_state, batch):
-        if backend == "pallas":
-            # production TPU path: the single-pass fused train kernel
-            # (fwd + sum-MSE + bwd in one pallas_call) runs per data shard;
-            # its custom_vjp supplies the per-shard grads that psum reduces
-            def loss_fn(p):
-                from lomanerf_tpu.ops import fused_nerf
-
-                return fused_nerf.nerf_train_loss(
-                    p, batch.origins, batch.directions, batch.t_vals,
-                    batch.dists, batch.target, config,
-                )
-        else:
-            def loss_fn(p):
-                pred = render_rays_local(
-                    p, batch, config.num_encoding_functions, config.mode,
-                    mlp_fn, backend, config,
-                )
-                return losses.sum_mse(pred, batch.target)
+        def loss_fn(p):
+            return pipeline.nerf_loss_rays(
+                p, batch.origins, batch.directions, batch.t_vals,
+                batch.dists, batch.target,
+                num_functions=config.num_encoding_functions,
+                mode=config.mode, precision=config.precision, mlp=mlp_fn,
+            )
 
         loss, grads = jax.value_and_grad(loss_fn)(params)
-        # gradient all-reduce over the ray shards (ICI collective — the
-        # TPU-native analog of loma's atomic_add adjoint accumulation)
+        # gradient all-reduce over the ray shards (the analog of loma's
+        # atomic_add adjoint accumulation)
         grads = jax.lax.psum(grads, "data")
         loss = jax.lax.psum(loss, "data")
         updates, opt_state = optimizer.update(grads, opt_state, params)
@@ -201,10 +150,12 @@ def make_train_step(
             d_spec = P() if uniform else P("data")
             batch_spec = RayBatch(P("data"), P("data"), d_spec, d_spec,
                                   P("data"))
-            sharded = shard_map_compat(
-                local_step, mesh,
+            # replication checker off: the step psums explicitly, and the
+            # tp collectives carry their own gradient rules (parallel/tp.py)
+            sharded = jax.shard_map(
+                local_step, mesh=mesh,
                 in_specs=(p_spec, o_spec, batch_spec),
-                out_specs=(p_spec, o_spec, P()),
+                out_specs=(p_spec, o_spec, P()), check_vma=False,
             )
             _variants[uniform] = jax.jit(
                 sharded, donate_argnums=(0, 1) if donate else ()

@@ -5,7 +5,7 @@ This module compiles the reference's two differentiable kernels
 reference's own compiler (``/root/reference/loma_public/compiler.py``,
 target='c', gcc) and exposes numpy-in / numpy-out wrappers for the forward
 and reverse-mode entry points.  It is used by the parity test-suite to assert
-that this framework's jnp/Pallas pipelines produce `allclose` losses, images
+that this framework's jnp pipelines produce `allclose` losses, images
 and gradients (the BASELINE.md correctness gate).
 
 Nothing from the reference is copied; we import its compiler as an external

@@ -1,14 +1,14 @@
 """2D image-fit training driver (the ``fit_img.py`` capability).
 
 Fits an MLP to a target image through positional-encoded pixel coords.
-Differences from the reference are deliberate TPU-first upgrades:
+Deliberate differences from the reference:
   * the whole image trains as ONE batch per step on-device (the reference
     chunks to 256 px because of loma's 256-row bound, fit_img.py:421-431);
     ``--chunk`` restores chunked behavior for parity experiments;
   * optimizer is configurable (raw SGD = reference default);
   * ``--parity-seed`` seeds each step's adjoint with the previous loss
     (the reference's ``_dreturn`` quirk, fit_img.py:497) instead of 1.0;
-  * checkpointing is real (orbax).
+  * checkpointing is real (orbax, or numpy without it).
 
 Run: ``python -m lomanerf_tpu.train.fit_image --steps 2000 --img synthetic``
 """
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 
@@ -43,7 +44,10 @@ def load_target(path: str, img_size: int) -> np.ndarray:
     return np.asarray(img, dtype=np.float32) / 255.0
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Fit; returns ``{"losses", "step_s", "psnr"}``: per-step losses, per-
+    step wall seconds (to the loss being ready; the first includes
+    compilation) and the final PSNR."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--img", default="synthetic",
                     help="'synthetic' or a path to an image file")
@@ -64,9 +68,6 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default="checkpoints/fit_image")
     ap.add_argument("--ckpt-every", type=int, default=5000)
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--backend", default="auto",
-                    choices=["auto", "jnp", "pallas"],
-                    help="auto = fused pallas kernels on TPU, jnp elsewhere")
     ap.add_argument("--platform", default=None,
                     help="force jax platform (e.g. cpu)")
     args = ap.parse_args(argv)
@@ -81,8 +82,12 @@ def main(argv=None) -> None:
     from lomanerf_tpu.core import psnr
     from lomanerf_tpu.models import ImageFieldConfig, ImageFieldModel
     from lomanerf_tpu.train import checkpoint, optim
-    from lomanerf_tpu.train.logging_utils import MetricsLogger, save_triptych
+    from lomanerf_tpu.train.logging_utils import MetricsLogger, \
+        save_comparison
     from lomanerf_tpu.train.steps import make_image_fit_step
+    from lomanerf_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     cfg = ImageFieldConfig(
         num_layers=args.layers,
@@ -90,10 +95,7 @@ def main(argv=None) -> None:
         num_encoding_functions=args.enc_functions,
         img_size=args.img_size,
     )
-    from lomanerf_tpu.train.steps import resolve_backend
-
-    args.backend = resolve_backend(cfg, args.backend)
-    model = ImageFieldModel(cfg, backend=args.backend)
+    model = ImageFieldModel(cfg)
 
     target = (
         synthetic_target(args.img_size)
@@ -119,14 +121,15 @@ def main(argv=None) -> None:
         params, opt_state, start_step = ckpt.restore(params, opt_state)
         print(f"resumed from step {start_step}")
 
-    step_fn = make_image_fit_step(cfg, opt, backend=args.backend, donate=False)
+    step_fn = make_image_fit_step(cfg, opt, donate=False)
     logger = MetricsLogger(args.log_dir)
-    losses = []
+    losses, step_s = [], []
     prev_loss = None
 
     n_px = coords.shape[0]
     chunk = args.chunk or n_px
     for i in range(start_step, args.steps):
+        t0 = time.perf_counter()
         for lo in range(0, n_px, chunk):
             sl = slice(lo, lo + chunk)
             seed = (prev_loss if (args.parity_seed and prev_loss is not None)
@@ -135,26 +138,27 @@ def main(argv=None) -> None:
                 params, opt_state, coords[sl], target_flat[sl], seed
             )
             prev_loss = loss
-        losses.append(float(loss))
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
         if i % args.log_every == 0:
             pred = model.render(params)
             p = float(psnr(pred, jnp.asarray(target)))
             logger.log(i, loss=losses[-1], psnr=p)
             print(f"step {i} loss {losses[-1]:.4f} psnr {p:.2f} dB")
             frame = os.path.join(args.log_dir, f"iter_{i}.png")
-            save_triptych(frame, target, np.asarray(pred), losses)
+            save_comparison(frame, target, np.asarray(pred))
             logger.log_image(i, "fit", frame)
         if args.ckpt_every and i and i % args.ckpt_every == 0:
             ckpt.save(i, params, opt_state)
 
     ckpt.save(args.steps, params, opt_state)
     pred = model.render(params)
-    save_triptych(
-        os.path.join(args.log_dir, f"iter_{args.steps}.png"),
-        target, np.asarray(pred), losses,
-    )
+    save_comparison(os.path.join(args.log_dir, f"iter_{args.steps}.png"),
+                    target, np.asarray(pred))
     logger.close()
-    print(f"final psnr: {float(psnr(pred, jnp.asarray(target))):.2f} dB")
+    final_psnr = float(psnr(pred, jnp.asarray(target)))
+    print(f"final psnr: {final_psnr:.2f} dB")
+    return {"losses": losses, "step_s": step_s, "psnr": final_psnr}
 
 
 if __name__ == "__main__":

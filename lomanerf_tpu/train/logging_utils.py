@@ -2,17 +2,19 @@
 
 The reference logs scalar loss to wandb and saves matplotlib triptychs
 (target / prediction / loss-or-PSNR curve) to ``logs_2d|logs_3d/*.png``
-(fit_img.py:545-558, train_nerf.py:686-700).  Here: same triptychs, a JSONL
-metrics stream (always on), and wandb only if installed (it is not baked
-into this image).
+(fit_img.py:545-558, train_nerf.py:686-700).  Here: target | prediction
+PNGs written with the standard library alone, the curves as a JSONL metrics
+stream (always on), and wandb only if installed.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import struct
 import time
-from typing import Optional, Sequence
+import zlib
+from typing import Optional
 
 import numpy as np
 
@@ -73,26 +75,30 @@ class MetricsLogger:
             self._wandb.finish()
 
 
-def save_triptych(
-    path: str,
-    target: np.ndarray,
-    prediction: np.ndarray,
-    curve: Sequence[float],
-    curve_label: str = "loss",
-) -> None:
-    """Target | prediction | metric-curve panel, like the reference's logs."""
-    import matplotlib
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write an (H, W, 3) image with values in [0, 1] as an 8-bit RGB PNG."""
+    rgb = (np.clip(np.asarray(image, np.float32), 0.0, 1.0) * 255.0 + 0.5
+           ).astype(np.uint8)
+    h, w, _ = rgb.shape
+    # each scanline starts with filter type 0 (none)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)],
+                         axis=1).tobytes()
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    fig, ax = plt.subplots(1, 3, figsize=(15, 5))
-    ax[0].imshow(np.clip(np.asarray(target), 0, 1))
-    ax[0].set_title("Target")
-    ax[1].imshow(np.clip(np.asarray(prediction), 0, 1))
-    ax[1].set_title("Prediction")
-    ax[2].plot(list(curve))
-    ax[2].set_title(curve_label)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    fig.savefig(path)
-    plt.close(fig)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def save_comparison(path: str, target: np.ndarray,
+                    prediction: np.ndarray) -> None:
+    """Target | prediction side by side, like the reference's log images
+    (its third panel, the metric curve, is in metrics.jsonl)."""
+    write_png(path, np.concatenate(
+        [np.asarray(target), np.asarray(prediction)], axis=1))

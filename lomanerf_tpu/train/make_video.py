@@ -65,7 +65,9 @@ def main(argv=None) -> None:
         from lomanerf_tpu.data import sphere_poses
         from lomanerf_tpu.models import NeRFConfig, NeRFModel
         from lomanerf_tpu.train import checkpoint
+        from lomanerf_tpu.utils import enable_compile_cache
 
+        enable_compile_cache()
         if args.preset:
             cfg = NeRFConfig.preset(args.preset)
         else:

@@ -1,70 +1,42 @@
-"""Single-chip train steps (jitted, donated) for both model families."""
+"""Single-device train steps (jitted, donated) for both model families."""
 
 from __future__ import annotations
 
-import functools
-from typing import Callable, Tuple
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
 import optax
 
-from lomanerf_tpu.core import composite, encoding, losses
-from lomanerf_tpu.core.mlp import Params, mlp_apply
+from lomanerf_tpu.core import encoding, losses, pipeline
 
 
-def resolve_backend(cfg, backend: str = "auto") -> str:
-    """Pick the compute path.  On TPU the fused pallas kernels win across
-    the config ladder: 2x on the MXU-bound 8x256x128spp flagship (bf16
-    row-major layout) and 1.9x on the narrow parity MLP (transposed
-    features-on-sublanes layout, auto-selected inside ops.fused_nerf).
-    See PERF.md for the measurements."""
-    if backend != "auto":
-        return backend
-    import jax
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-    return "pallas" if on_tpu else "jnp"
+def nerf_loss_fn(params, origins, directions, t_vals, dists, target, cfg):
+    """Sum-MSE NeRF loss at the config's matmul precision."""
+    return pipeline.nerf_loss_rays(
+        params, origins, directions, t_vals, dists, target,
+        num_functions=cfg.num_encoding_functions, mode=cfg.mode,
+        precision=cfg.precision,
+    )
 
 
-def nerf_loss_fn(params, origins, directions, t_vals, dists, target, cfg,
-                 backend: str = "jnp"):
-    if backend == "pallas":
-        # single fused kernel computes loss AND gradients in one pass
-        # (activations never leave VMEM; one fewer forward per step)
-        from lomanerf_tpu.ops import fused_nerf
-
-        return fused_nerf.nerf_train_loss(params, origins, directions,
-                                          t_vals, dists, target, cfg)
-    elif backend == "pallas-remat":
-        # ablation path: separate forward kernel + remat backward kernel
-        from lomanerf_tpu.ops import fused_nerf
-
-        pred = fused_nerf.render_rays(params, origins, directions, t_vals,
-                                      dists, cfg)
-    else:
-        pts = origins[:, None, :] + directions[:, None, :] * t_vals[..., None]
-        enc = encoding.positional_encoding(pts, cfg.num_encoding_functions)
-        n, s, f = enc.shape
-        prec = getattr(cfg, "jnp_precision", jax.lax.Precision.HIGHEST)
-        rgba = mlp_apply(params, enc.reshape(n * s, f), head="rgba",
-                         precision=prec).reshape(n, s, -1)
-        weights = composite.render_weights(rgba[..., 3], dists, mode=cfg.mode)
-        pred = composite.accumulate_color(weights, rgba[..., :3])
+def image_fit_loss_fn(params, coords, target, cfg):
+    """Sum-MSE of the image field on RAW (N, 2) pixel coords (encoded
+    in-graph) at the config's matmul precision."""
+    enc = encoding.positional_encoding(coords, cfg.num_encoding_functions)
+    pred = pipeline.image_fit_pred(params, enc, precision=cfg.precision)
     return losses.sum_mse(pred, target)
 
 
 def make_single_chip_train_step(
-    cfg, optimizer: optax.GradientTransformation, backend: str = "jnp",
-    donate: bool = True,
+    cfg, optimizer: optax.GradientTransformation, donate: bool = True,
 ) -> Callable:
     """step(params, opt_state, origins, directions, t_vals, dists, target)
     -> (params, opt_state, loss), jitted with donated carry."""
-    backend = resolve_backend(cfg, backend)
 
     def step(params, opt_state, origins, directions, t_vals, dists, target):
         loss, grads = jax.value_and_grad(nerf_loss_fn)(
-            params, origins, directions, t_vals, dists, target, cfg, backend
+            params, origins, directions, t_vals, dists, target, cfg
         )
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
@@ -74,34 +46,17 @@ def make_single_chip_train_step(
 
 
 def make_image_fit_step(
-    cfg, optimizer: optax.GradientTransformation, backend: str = "jnp",
-    donate: bool = True,
+    cfg, optimizer: optax.GradientTransformation, donate: bool = True,
 ) -> Callable:
     """2D-fit step: step(params, opt_state, coords, target, seed).
 
-    Takes RAW (N, 2) pixel coords — encoding runs on-device (fused into the
-    pallas kernel, or as jnp ops); the reference encodes on the host in numpy
-    and marshals 22 floats/pixel per call (fit_img.py:395-397)."""
-
-    def loss_fn(params, coords, target):
-        if backend == "pallas":
-            from lomanerf_tpu.ops import fused_mlp
-
-            pred = fused_mlp.field_forward(
-                params, coords, cfg.num_encoding_functions,
-                out_channels=cfg.out_channels,
-                highest_precision=getattr(cfg, "precision", "highest"),
-            )
-        else:
-            pred = mlp_apply(
-                params,
-                encoding.positional_encoding(coords, cfg.num_encoding_functions),
-                head="sigmoid",
-            )
-        return losses.sum_mse(pred, target)
+    Takes RAW (N, 2) pixel coords — encoding runs on-device inside the
+    step; the reference encodes on the host in numpy and marshals 22
+    floats/pixel per call (fit_img.py:395-397)."""
 
     def step(params, opt_state, coords, target, seed=None):
-        loss, vjp = jax.vjp(lambda p: loss_fn(p, coords, target), params)
+        loss, vjp = jax.vjp(
+            lambda p: image_fit_loss_fn(p, coords, target, cfg), params)
         s = jnp.asarray(1.0 if seed is None else seed, dtype=loss.dtype)
         (grads,) = vjp(s)
         updates, opt_state = optimizer.update(grads, opt_state, params)

@@ -1,8 +1,8 @@
 """NeRF training driver (the ``train_nerf.py`` capability).
 
-Trains a radiance field on a Blender-format dataset (or an auto-generated
-synthetic scene) with rays sharded over the device mesh.  TPU-first
-differences from the reference:
+Trains a radiance field on a Blender-format dataset (or a synthetic scene
+rendered in memory) with rays sharded over the device mesh.  Differences
+from the reference:
   * per step, a fixed-size random ray batch from a random view (static
     shapes for XLA) instead of the reference's 4-ray chunk loop;
   * data-parallel over all devices via shard_map + psum (the reference is
@@ -20,11 +20,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import time
 
 import numpy as np
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Train; returns ``{"losses", "step_s", "eval_s", "psnrs"}``: the
+    per-step losses, per-step wall seconds (to the loss being ready; the
+    first includes compilation), per-eval frame-render seconds (the first
+    includes compilation) and per-eval PSNRs."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", default="synthetic",
                     help="'synthetic' or a Blender-format dataset dir")
@@ -32,7 +37,7 @@ def main(argv=None) -> None:
                     choices=["small", "single64", "full"],
                     help="NeRFConfig ladder preset (BASELINE configs; "
                          "overrides --layers/--width/--samples/--mode and "
-                         "sets the production compute dtype/precision)")
+                         "sets the production matmul precision)")
     ap.add_argument("--img-size", type=int, default=64)
     ap.add_argument("--steps", type=int, default=50000)
     ap.add_argument("--rays-per-batch", type=int, default=4096)
@@ -50,9 +55,6 @@ def main(argv=None) -> None:
     ap.add_argument("--stratified", action="store_true",
                     help="jitter depth samples per ray")
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel size")
-    ap.add_argument("--backend", default="auto",
-                    choices=["auto", "jnp", "pallas"],
-                    help="auto = fused pallas kernels on TPU, jnp elsewhere")
     ap.add_argument("--pipeline", default="python",
                     choices=["python", "native", "numpy"],
                     help="ray-batch producer: in-driver python, the C++ "
@@ -67,7 +69,7 @@ def main(argv=None) -> None:
     ap.add_argument("--platform", default=None)
     ap.add_argument("--coordinator", default=None,
                     help="multi-host coordinator address host:port (single "
-                         "host / pre-initialized pod runtimes: omit)")
+                         "host / pre-initialized cluster runtimes: omit)")
     args = ap.parse_args(argv)
 
     import jax
@@ -79,15 +81,18 @@ def main(argv=None) -> None:
 
     from lomanerf_tpu.core import get_rays, normalized_intrinsics, psnr, \
         sample_along_rays, stratified_ray_offsets
-    from lomanerf_tpu.data import NeRFDataset, write_blender_dataset
+    from lomanerf_tpu.data import NeRFDataset, synthetic_views
     from lomanerf_tpu.models import NeRFConfig, NeRFModel
     from lomanerf_tpu.parallel import RayBatch, initialize_multihost, \
         is_primary, make_mesh, make_train_step, place_state, shard_batch
     from lomanerf_tpu.train import checkpoint, optim
-    from lomanerf_tpu.train.logging_utils import MetricsLogger, save_triptych
+    from lomanerf_tpu.train.logging_utils import MetricsLogger, \
+        save_comparison
+    from lomanerf_tpu.utils import enable_compile_cache
 
     # multi-host first: the mesh below spans ALL processes' devices
     initialize_multihost(args.coordinator)
+    enable_compile_cache()
 
     if args.preset:
         cfg = dataclasses.replace(NeRFConfig.preset(args.preset),
@@ -102,30 +107,20 @@ def main(argv=None) -> None:
             far=args.far,
             mode=args.mode,
         )
-    from lomanerf_tpu.train.steps import resolve_backend
+    model = NeRFModel(cfg)
 
-    args.backend = resolve_backend(cfg, args.backend)
-    model = NeRFModel(cfg, backend=args.backend)
-
-    data_dir = args.data
-    if data_dir == "synthetic":
-        data_dir = os.path.join("data", "synthetic_scene")
-        if not os.path.exists(os.path.join(data_dir, "transforms_train.json")):
-            if is_primary():
-                print("generating synthetic Blender-format dataset...")
-                write_blender_dataset(data_dir, n_frames=16,
-                                      img_size=args.img_size)
-            if jax.process_count() > 1:  # wait for process 0's write
-                from jax.experimental import multihost_utils
-
-                multihost_utils.sync_global_devices("synthetic_dataset")
-    dataset = NeRFDataset(data_dir, img_size=args.img_size, phase="train")
-    focal = dataset.focal_length
+    if args.data == "synthetic":
+        # rendered in memory, identically on every process (fixed seed)
+        images, poses, focal = synthetic_views(n_frames=16,
+                                               img_size=args.img_size)
+    else:
+        dataset = NeRFDataset(args.data, img_size=args.img_size,
+                              phase="train")
+        focal = dataset.focal_length
+        images = np.stack([dataset[i]["image"] for i in range(len(dataset))])
+        poses = np.stack([dataset[i]["pose"] for i in range(len(dataset))])
+    n_views = len(images)
     K = normalized_intrinsics(focal)
-
-    # preload all views (tiny) into host arrays
-    images = np.stack([dataset[i]["image"] for i in range(len(dataset))])
-    poses = np.stack([dataset[i]["pose"] for i in range(len(dataset))])
 
     # precompute per-view rays once (pose set is static)
     all_o, all_d = [], []
@@ -135,7 +130,7 @@ def main(argv=None) -> None:
         all_d.append(np.asarray(d))
     all_o = np.stack(all_o)  # (V, HW, 3)
     all_d = np.stack(all_d)
-    all_t = images.reshape(len(dataset), -1, 3)
+    all_t = images.reshape(n_views, -1, 3)
 
     params = model.init(jax.random.PRNGKey(args.seed))
     opt = {
@@ -148,14 +143,12 @@ def main(argv=None) -> None:
     n_dev = jax.device_count()
     tp = args.tp
     mesh = make_mesh(dp=n_dev // tp, tp=tp)
-    # every pipeline (python/native/numpy, stratified or not) now emits
-    # (S,) per-ray-uniform depths — stratified jitter is folded into the
-    # origins as a per-ray comb shift — so all modes hit the fused kernels'
-    # in-kernel point generation; the step infers the depth sharding spec
-    # from t_vals rank
+    # every pipeline (python/native/numpy, stratified or not) emits (S,)
+    # per-ray-uniform depths — stratified jitter is folded into the origins
+    # as a per-ray comb shift; the step infers the depth sharding spec from
+    # t_vals rank
     step_fn = make_train_step(
-        cfg, opt, mesh, params, opt_state, tp=(tp > 1), backend=args.backend,
-        donate=False,
+        cfg, opt, mesh, params, opt_state, tp=(tp > 1), donate=False,
     )
 
     ckpt = checkpoint.CheckpointManager(args.ckpt_dir)
@@ -173,7 +166,7 @@ def main(argv=None) -> None:
     host_seed = args.seed + 7919 * jax.process_index()
     rng = np.random.default_rng(host_seed)
     jkey = jax.random.PRNGKey(host_seed)
-    psnrs, losses = [], []
+    psnrs, losses, step_s, eval_s = [], [], [], []
 
     pipe = None
     if args.pipeline in ("native", "numpy"):
@@ -191,9 +184,7 @@ def main(argv=None) -> None:
     for i in range(start_step, args.steps):
         if pipe is not None:
             # offset-form depths: fold the per-ray stratified offset into
-            # the origins (o + d*dt); depths stay the static (S,) comb, so
-            # every pipeline hits the fused kernels' in-kernel point
-            # generation (s-major fast path, PERF.md round-3)
+            # the origins (o + d*dt); depths stay the static (S,) comb
             o_np, d_np, toff_np, tgt_np = pipe.next_batch()
             o_np = o_np + d_np * toff_np[:, None]
             batch = shard_batch(
@@ -202,7 +193,7 @@ def main(argv=None) -> None:
                     o_np, d_np, pipe.t_base, pipe.dists, tgt_np))),
             )
         else:
-            v = rng.integers(len(dataset))
+            v = rng.integers(n_views)
             idx = rng.integers(all_o.shape[1], size=n_rays)
             o = jnp.asarray(all_o[v, idx])
             d = jnp.asarray(all_d[v, idx])
@@ -219,8 +210,10 @@ def main(argv=None) -> None:
                 mesh,
                 RayBatch(o, d, t_vals, dists, jnp.asarray(all_t[v, idx])),
             )
+        t0 = time.perf_counter()
         params, opt_state, loss = step_fn(params, opt_state, batch)
-        losses.append(float(loss))
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
         if not np.isfinite(losses[-1]):
             # the reference drops into pdb on NaN grads (train_nerf.py:486-
             # 489); here: report and stop so the checkpoint stays usable
@@ -233,18 +226,22 @@ def main(argv=None) -> None:
             # reassembled by all-gather — parallel/render_step.py); only
             # process 0 writes.  TP-sharded params take the plain jit path
             # (XLA gathers the width shards for the render).
-            view = args.eval_view % len(dataset)
+            view = args.eval_view % n_views
+            t0 = time.perf_counter()
             img = model.render_image(params, K, jnp.asarray(poses[view]),
                                      args.img_size,
                                      mesh=mesh if tp == 1 else None)
-            p = float(psnr(jnp.asarray(images[view]), img))
+            img = np.asarray(img)  # waits for the render
+            eval_s.append(time.perf_counter() - t0)
+            p = float(psnr(jnp.asarray(images[view]), jnp.asarray(img)))
             psnrs.append(p)
             logger.log(i, loss=losses[-1], psnr=p)
             if is_primary():
-                print(f"step {i} loss {losses[-1]:.4f} psnr {p:.2f} dB")
+                print(f"step {i} loss {losses[-1]:.4f} psnr {p:.2f} dB "
+                      f"step {step_s[-1] * 1e3:.2f} ms "
+                      f"render {eval_s[-1] * 1e3:.1f} ms")
                 frame = os.path.join(args.log_dir, f"{i}.png")
-                save_triptych(frame, images[view], np.asarray(img), psnrs,
-                              curve_label="PSNR")
+                save_comparison(frame, images[view], img)
                 logger.log_image(i, "render", frame)
         if args.ckpt_every and i and i % args.ckpt_every == 0:
             ckpt.save(i, params, opt_state)
@@ -253,6 +250,8 @@ def main(argv=None) -> None:
     logger.close()
     if is_primary():
         print(f"done; final loss {losses[-1]:.4f}")
+    return {"losses": losses, "step_s": step_s, "eval_s": eval_s,
+            "psnrs": psnrs}
 
 
 if __name__ == "__main__":

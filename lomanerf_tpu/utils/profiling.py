@@ -2,20 +2,23 @@
 
 The reference's only 'tracing' is printing generated C code and
 differentiated functions at compile time (compiler.py:133-134,
-autodiff.py:307-317).  The idiomatic TPU analogs provided here:
+autodiff.py:307-317).  The JAX analogs provided here:
 
 * :func:`trace` — context manager around ``jax.profiler`` emitting a
   TensorBoard-loadable trace directory,
 * :func:`dump_hlo` — compiled-HLO text for a jitted function (the
   'generated code dump' analog),
 * :func:`print_lowered` — StableHLO of the traced computation,
-* :func:`device_memory_stats` — live/peak device memory.
+* :func:`device_memory_stats` — live/peak device memory,
+* :func:`gpu_name_and_power_limit` — what every device number is reported
+  beside.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 from typing import Any, Callable, Optional
 
 import jax
@@ -58,3 +61,17 @@ def device_memory_stats(device=None) -> dict:
     d = device or jax.devices()[0]
     stats = getattr(d, "memory_stats", lambda: None)()
     return stats or {}
+
+
+def gpu_name_and_power_limit() -> Optional[str]:
+    """The cards' names and power limits, one line per card, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them; None where there is no nvidia-smi."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return r.stdout.strip()

@@ -1,6 +1,6 @@
 // Native host data pipeline: multithreaded ray-batch producer/prefetcher.
 //
-// TPU-native counterpart of the reference's native runtime layer (the ISPC
+// Counterpart of the reference's native runtime layer (the ISPC
 // task system, loma_public/runtime/tasksys.cpp: a pthread pool executing
 // launched tasks).  Here the host-side work worth parallelizing is the input
 // pipeline: per-batch camera-ray generation (train_nerf.py:23-62 semantics:
@@ -14,8 +14,7 @@
 // per-ray scalar offset dt[r] (a Cranley-Patterson shifted lattice:
 // stratified = every ray's comb shifts by u01*bin; 0 when unjittered).
 // The consumer folds dt into ray origins (o + d*dt), which keeps batch
-// depth arrays O(S) instead of O(N*S) and preserves the fused TPU
-// kernels' per-ray-uniform-depth contract (in-kernel point generation).
+// depth arrays O(S) instead of O(N*S) (per-ray-uniform depths).
 //
 // C ABI only (consumed via ctypes; no pybind11 in this image).
 

@@ -2,11 +2,11 @@
 
 The reference's parse -> autodiff -> gcc pipeline takes minutes for the NeRF
 kernel (reverse_diff emits tens of MB of statically-taped C); running it
-inside a timed benchmark window starved the round-3 ladder.  Run this once
+inside a timed benchmark window distorts it.  Run this once
 (no timeout pressure), then ``bench.py --live-baseline`` and the parity
 tests load the cached .so instantly (parity/oracle.get_lib fast path).
 
-Pure CPU / no jax — safe to run alongside a TPU client.
+Pure CPU / no jax — safe to run alongside a process that holds the GPU.
 """
 
 import sys

@@ -25,10 +25,7 @@ from lomanerf_tpu.parallel import (
     tp_param_specs,
 )
 
-try:
-    from jax import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def _ray_batch(rng, n, s, cfg):
@@ -126,49 +123,6 @@ def test_tp_odd_layers_all_gather_tail(rng):
                                atol=1e-6)
 
 
-def test_dp_pallas_train_step_matches_single_device_pallas(rng):
-    """The PRODUCTION TPU configuration: the single-pass fused pallas train
-    kernel (ops/fused_nerf.nerf_train_loss) running per data shard under
-    shard_map, grads psum'd over the mesh — must match the single-device
-    pallas gradients AND the jnp pipeline.  Interpret-mode pallas on the
-    8-device CPU mesh (the analog of the reference's ISPC atomic-add fan-in
-    tests, hw_tests/hw3/test.py:452-515)."""
-    cfg = NeRFConfig(num_samples=8)
-    mesh = make_mesh(dp=8, tp=1, axis_names=("data", "model"))
-    params = init_mlp(jax.random.PRNGKey(4), cfg.in_channels, 4,
-                      cfg.num_layers, cfg.filter_size)
-    opt = optax.sgd(1e-3)
-    opt_state = opt.init(params)
-    batch = _ray_batch(rng, 64, cfg.num_samples, cfg)
-
-    step = make_train_step(cfg, opt, mesh, params, opt_state,
-                           backend="pallas", donate=False,
-                           uniform_depths=True)
-    new_params, _, loss = step(params, opt_state, batch)
-
-    # single-device pallas reference (same kernel, no mesh)
-    from lomanerf_tpu.ops import fused_nerf
-
-    loss_1dev, grads_1dev = jax.value_and_grad(
-        lambda p: fused_nerf.nerf_train_loss(
-            p, batch.origins, batch.directions, batch.t_vals, batch.dists,
-            batch.target, cfg,
-        )
-    )(params)
-    np.testing.assert_allclose(float(loss), float(loss_1dev), rtol=1e-5)
-    expect = jax.tree.map(lambda p, g: p - 1e-3 * g, params, grads_1dev)
-    for a, b in zip(jax.tree.leaves(new_params), jax.tree.leaves(expect)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4,
-                                   atol=1e-6)
-
-    # and the jnp pipeline agrees (transitively oracle-parity-tested)
-    loss_jnp = nerf_loss_rays(
-        params, batch.origins, batch.directions, batch.t_vals, batch.dists,
-        batch.target, num_functions=cfg.num_encoding_functions, mode=cfg.mode,
-    )
-    np.testing.assert_allclose(float(loss), float(loss_jnp), rtol=1e-5)
-
-
 def test_mesh_sharded_render_matches_single_device(rng):
     """BASELINE config 5's render path: the mesh-sharded full-image render
     (chunks sharded over 8 devices, frame reassembled by tiled all_gather,
@@ -179,7 +133,7 @@ def test_mesh_sharded_render_matches_single_device(rng):
 
     cfg = NeRFConfig(num_layers=2, filter_size=8, num_samples=4)
     mesh = make_mesh(dp=8, tp=1, axis_names=("data", "model"))
-    model = NeRFModel(cfg, backend="jnp")
+    model = NeRFModel(cfg)
     params = model.init(jax.random.PRNGKey(7))
     from lomanerf_tpu.core import normalized_intrinsics
     from lomanerf_tpu.data import sphere_poses
@@ -195,7 +149,7 @@ def test_mesh_sharded_render_matches_single_device(rng):
 
     # the low-level step: ragged ray count (not a multiple of chunk*n_dev)
     # pads, renders, and reassembles in global ray order
-    step = make_render_step(cfg, mesh, backend="jnp")
+    step = make_render_step(cfg, mesh)
     o = rng.standard_normal((37, 3)).astype(np.float32)
     d = rng.standard_normal((37, 3)).astype(np.float32)
     oc, dc, n = shard_ray_chunks(mesh, o, d, chunk=2)
@@ -203,39 +157,9 @@ def test_mesh_sharded_render_matches_single_device(rng):
     cols = step(params, oc, dc)
     from lomanerf_tpu.models.nerf import render_chunk
 
-    ref = render_chunk(cfg, "jnp", params, jnp.asarray(o), jnp.asarray(d))
+    ref = render_chunk(cfg, params, jnp.asarray(o), jnp.asarray(d))
     np.testing.assert_allclose(np.asarray(cols[:n]), np.asarray(ref),
                                rtol=1e-5, atol=1e-6)
-
-
-def test_mesh_sharded_render_pallas_interpret(rng):
-    """The production kernel under the sharded render: fused pallas render
-    (interpret mode on CPU) per shard matches the jnp pipeline."""
-    from lomanerf_tpu.parallel import make_render_step, shard_ray_chunks
-    from lomanerf_tpu.models.nerf import render_chunk
-
-    cfg = NeRFConfig(num_samples=8)
-    mesh = make_mesh(dp=8, tp=1, axis_names=("data", "model"))
-    params = init_mlp(jax.random.PRNGKey(9), cfg.in_channels, 4,
-                      cfg.num_layers, cfg.filter_size)
-    o = rng.standard_normal((64, 3)).astype(np.float32)
-    d = rng.standard_normal((64, 3)).astype(np.float32)
-    oc, dc, n = shard_ray_chunks(mesh, o, d, chunk=8)
-    cols = make_render_step(cfg, mesh, backend="pallas")(params, oc, dc)
-    ref = render_chunk(cfg, "jnp", params, jnp.asarray(o), jnp.asarray(d))
-    np.testing.assert_allclose(np.asarray(cols[:n]), np.asarray(ref),
-                               rtol=2e-4, atol=2e-5)
-
-
-def test_pallas_with_tp_raises():
-    cfg = NeRFConfig(num_samples=8)
-    mesh = make_mesh(dp=2, tp=4, axis_names=("data", "model"))
-    params = init_mlp(jax.random.PRNGKey(5), cfg.in_channels, 4,
-                      cfg.num_layers, cfg.filter_size)
-    opt = optax.sgd(1e-3)
-    with pytest.raises(ValueError, match="data parallelism only"):
-        make_train_step(cfg, opt, mesh, params, opt.init(params), tp=True,
-                        backend="pallas")
 
 
 def test_host_local_batch_to_global(rng):
@@ -370,3 +294,52 @@ def test_two_process_multihost_cpu_end_to_end():
     )
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert "2-process multi-host check PASSED" in r.stdout
+
+
+@pytest.mark.parametrize("dp,tp,layers", [(8, 1, 4), (4, 2, 4), (2, 4, 4),
+                                          (4, 2, 3)])
+def test_train_step_grads_match_single_device(rng, dp, tp, layers):
+    """The sharded step's gradients equal one device's, for data parallel
+    and dp x tp meshes (3 layers: the all-gather tail).  SGD at lr 1 turns
+    the updated params back into the gradients."""
+    from lomanerf_tpu.train.steps import nerf_loss_fn
+
+    cfg = NeRFConfig(num_layers=layers, filter_size=32, num_samples=8)
+    mesh = make_mesh(dp=dp, tp=tp, axis_names=("data", "model"))
+    params = init_mlp(jax.random.PRNGKey(11), cfg.in_channels, 4,
+                      cfg.num_layers, cfg.filter_size, init="nerf")
+    opt = optax.sgd(1.0)
+    opt_state = opt.init(params)
+    batch = _ray_batch(rng, 32, cfg.num_samples, cfg)
+    step = make_train_step(cfg, opt, mesh, params, opt_state, tp=tp > 1,
+                           donate=False, uniform_depths=True)
+    new_params, _, loss = step(params, opt_state, batch)
+    loss_1, grads_1 = jax.value_and_grad(nerf_loss_fn)(params, *batch, cfg)
+    np.testing.assert_allclose(float(loss), float(loss_1), rtol=1e-5)
+    for p, q, g in zip(jax.tree.leaves(params), jax.tree.leaves(new_params),
+                       jax.tree.leaves(grads_1)):
+        np.testing.assert_allclose(np.asarray(p) - np.asarray(q),
+                                   np.asarray(g), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_rays", [5, 20])
+def test_sharded_render_fewer_rays_than_chunks(rng, n_rays):
+    """Fewer rays than chunk x devices: padding chunks on every device,
+    real rays back in order."""
+    from lomanerf_tpu.models.nerf import render_chunk
+    from lomanerf_tpu.parallel import make_render_step, shard_ray_chunks
+
+    cfg = NeRFConfig(num_layers=2, filter_size=8, num_samples=4)
+    mesh = make_mesh(dp=8, tp=1, axis_names=("data", "model"))
+    params = init_mlp(jax.random.PRNGKey(3), cfg.in_channels, 4,
+                      cfg.num_layers, cfg.filter_size)
+    o = rng.standard_normal((n_rays, 3)).astype(np.float32)
+    d = rng.standard_normal((n_rays, 3)).astype(np.float32)
+    oc, dc, n = shard_ray_chunks(mesh, o, d, chunk=4)
+    assert n == n_rays and oc.shape == (8, 4, 3)
+    assert {sh.device for sh in oc.addressable_shards} == set(jax.devices())
+    cols = make_render_step(cfg, mesh)(params, oc, dc)
+    assert cols.shape == (32, 3)
+    ref = render_chunk(cfg, params, jnp.asarray(o), jnp.asarray(d))
+    np.testing.assert_allclose(np.asarray(cols[:n]), np.asarray(ref),
+                               rtol=1e-5, atol=1e-6)

@@ -139,14 +139,12 @@ def test_nerf_input_grad_parity(rng):
     )
 
 
-def test_nerf_fused_high_tier_grad_parity(rng):
-    """The 'high' (bf16x3) matmul tier of the fused s-major train kernel
-    meets the SAME oracle-parity tolerances as the fp32-HIGHEST jnp gate
-    (rtol 3e-4 / atol 3e-5) — the evidence that backs using it as the
-    production precision for narrow configs (PERF.md round 4: 27.2 ->
-    20.0 ms/step on chip at grad deltas ~1e-4 of grad-max)."""
-    from lomanerf_tpu.models import NeRFConfig
-    from lomanerf_tpu.ops import fused_nerf
+def test_nerf_high_tier_grad_parity(rng):
+    """The "high" matmul precision (core.mlp.PRECISIONS) meets the SAME
+    oracle-parity tolerances as the fp32-HIGHEST gate (rtol 3e-4 / atol
+    3e-5) — the evidence that backs it as the production precision of the
+    narrow configs."""
+    from lomanerf_tpu.core.pipeline import nerf_loss_rays
 
     n_rays, s = 4, 30
     ws, bs = _make_mlp(rng, [(33, 30), (30, 30), (30, 4)])
@@ -166,11 +164,10 @@ def test_nerf_fused_high_tier_grad_parity(rng):
     )
 
     params = params_from_numpy(ws, bs)
-    cfg = NeRFConfig(num_samples=s, precision="high")
     loss_f, grads = jax.value_and_grad(
-        lambda p: fused_nerf.nerf_train_loss(
+        lambda p: nerf_loss_rays(
             p, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t),
-            jnp.asarray(dists_1d), jnp.asarray(target), cfg)
+            jnp.asarray(dists_1d), jnp.asarray(target), precision="high")
     )(params)
     np.testing.assert_allclose(float(loss_f), loss_o, rtol=1e-4)
     for got, want in zip(grads["w"], d_ws_o):
